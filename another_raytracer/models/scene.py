@@ -1,0 +1,682 @@
+"""Flat SoA scene representation + host-side builder.
+
+The reference models a scene as a polymorphic pointer graph
+(``shared_ptr<hittable>`` with virtual ``hit``, src/engine/hittable.h) that a
+recursive integrator walks.  On an accelerator that design is untraceable:
+XLA needs static shapes and data-parallel ops.  Here a scene is one pytree of flat
+arrays — structure-of-arrays per primitive kind, plus material / texture /
+transform / image-atlas / Perlin tables — built host-side in float64 NumPy and
+shipped to device as float32.
+
+Kind encodings (stable public constants):
+  primitives : 0 sphere (static & moving unified), 1 axis-rect, 2 triangle,
+               3 constant medium
+  materials  : 0 lambertian, 1 metal, 2 dielectric, 3 diffuse_light,
+               4 isotropic   (reference: src/rendering/material.h)
+  textures   : 0 solid, 1 checker, 2 perlin-noise, 3 image,
+               4 barycentric-colors  (reference: src/rendering/texture.h)
+  media bounds: 0 sphere, 1 box (the analytic boundary interval replaces the
+               reference's double hittable::hit probe, constant_medium.h:42-47)
+
+Instancing: the reference wraps hittables in ``translate`` / ``rotate_y``
+nodes (hittable.h:31-64).  Here every primitive carries a transform id into a
+table of world-from-object (rotation, translation) pairs; id 0 is identity.
+Rays are moved to object space for intersection and hits moved back — the
+same math as hittable.cpp:57-85, vectorized.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence
+
+import jax.numpy as jnp
+import numpy as np
+
+from another_raytracer.utils import struct
+
+# --- kind constants --------------------------------------------------------
+
+PRIM_SPHERE = 0
+PRIM_RECT = 1
+PRIM_TRIANGLE = 2
+PRIM_MEDIUM = 3
+
+MAT_LAMBERTIAN = 0
+MAT_METAL = 1
+MAT_DIELECTRIC = 2
+MAT_DIFFUSE_LIGHT = 3
+MAT_ISOTROPIC = 4
+
+TEX_SOLID = 0
+TEX_CHECKER = 1
+TEX_NOISE = 2
+TEX_IMAGE = 3
+TEX_BARYCENTRIC = 4
+
+MED_SPHERE = 0
+MED_BOX = 1
+
+PERLIN_POINT_COUNT = 256
+
+
+@struct.dataclass
+class SceneData:
+    """Device-resident flat scene.  All float arrays are float32 on device."""
+
+    # Spheres: static and moving unified; a static sphere has c1 == c0 and the
+    # lerp is inert (reference: moving_sphere.h:29-31 generalizes sphere).
+    sph_c0: jnp.ndarray  # [Ns,3] center at t0
+    sph_c1: jnp.ndarray  # [Ns,3] center at t1
+    sph_t0: jnp.ndarray  # [Ns]
+    sph_t1: jnp.ndarray  # [Ns]
+    sph_r: jnp.ndarray  # [Ns]
+    sph_mat: jnp.ndarray  # [Ns] int32
+    sph_xf: jnp.ndarray  # [Ns] int32
+    # Reference quirk preserved: moving_sphere::hit never fills UV
+    # (moving_sphere.h:33-58); has_uv=0 forces u=v=0 for those.
+    sph_has_uv: jnp.ndarray  # [Ns] float32 (1.0 static / 0.0 moving)
+
+    # Axis-aligned rects: `axis` is the fixed coordinate (0=x yz_rect,
+    # 1=y xz_rect, 2=z xy_rect); lo/hi bound the two free coordinates in
+    # ascending axis order; u maps the lower free axis, v the higher
+    # (reference: src/primitives/aarect.cpp).
+    rect_axis: jnp.ndarray  # [Nr] int32
+    rect_k: jnp.ndarray  # [Nr]
+    rect_lo: jnp.ndarray  # [Nr,2]
+    rect_hi: jnp.ndarray  # [Nr,2]
+    rect_mat: jnp.ndarray  # [Nr] int32
+    rect_xf: jnp.ndarray  # [Nr] int32
+
+    # Triangles with per-vertex texcoords (reference: triangle.h + the
+    # barycentric_image_texture blend, texture.h:135-154).
+    tri_v0: jnp.ndarray  # [Nt,3]
+    tri_v1: jnp.ndarray  # [Nt,3]
+    tri_v2: jnp.ndarray  # [Nt,3]
+    tri_uv0: jnp.ndarray  # [Nt,2]
+    tri_uv1: jnp.ndarray  # [Nt,2]
+    tri_uv2: jnp.ndarray  # [Nt,2]
+    tri_mat: jnp.ndarray  # [Nt] int32
+    tri_xf: jnp.ndarray  # [Nt] int32
+
+    # Constant-density media with analytic boundaries
+    # (reference: constant_medium.h; boundaries in the 9 scenes are spheres
+    # and instanced boxes only).
+    med_kind: jnp.ndarray  # [Nm] int32 (MED_SPHERE / MED_BOX)
+    med_a: jnp.ndarray  # [Nm,3] center (sphere) or box min
+    med_b: jnp.ndarray  # [Nm,3] (radius,0,0) (sphere) or box max
+    med_neg_inv_density: jnp.ndarray  # [Nm]
+    med_mat: jnp.ndarray  # [Nm] int32 (isotropic phase material)
+    med_xf: jnp.ndarray  # [Nm] int32
+
+    # Transform table: world-from-object rotation + translation; id 0 = identity.
+    xf_rot: jnp.ndarray  # [M,3,3]
+    xf_trans: jnp.ndarray  # [M,3]
+
+    # Material table.
+    mat_kind: jnp.ndarray  # [K] int32
+    mat_tex: jnp.ndarray  # [K] int32 (albedo / emission texture id)
+    mat_fuzz: jnp.ndarray  # [K]
+    mat_ir: jnp.ndarray  # [K] index of refraction
+
+    # Texture table.
+    tex_kind: jnp.ndarray  # [T] int32
+    tex_ca: jnp.ndarray  # [T,3] solid color / checker even / barycentric A
+    tex_cb: jnp.ndarray  # [T,3] checker odd / barycentric B
+    tex_cc: jnp.ndarray  # [T,3] barycentric C
+    tex_scale: jnp.ndarray  # [T] perlin noise scale
+    tex_aux: jnp.ndarray  # [T] int32 image id (TEX_IMAGE) or perlin id (TEX_NOISE)
+
+    # Image atlas: all texel rows concatenated; per image (offset, w, h).
+    atlas: jnp.ndarray  # [P,3] float32 in [0,1]
+    # 8:8:8 packed texels (r*65536 + g*256 + b, exact in the f32 mantissa):
+    # ONE scalar gather instead of a 3-wide row gather in the forward hot
+    # loop.
+    # Only valid when atlas_exact_u8 (see build()); [1] placeholder else.
+    atlas_packed: jnp.ndarray  # [P] float32
+    img_off: jnp.ndarray  # [I] int32
+    img_w: jnp.ndarray  # [I] int32
+    img_h: jnp.ndarray  # [I] int32
+
+    # Perlin tables, one instance per noise texture (reference: each
+    # noise_texture owns a fresh perlin with its own tables, texture.h:52-65).
+    per_ranvec: jnp.ndarray  # [Q,256,3]
+    per_perm: jnp.ndarray  # [Q,3,256] int32
+
+    background: jnp.ndarray  # [3]
+
+    # Flat BVH over triangles (escape-index layout, models/bvh.py); empty
+    # arrays when the scene has no BVH.  Only valid for identity triangle
+    # transforms (the builder enforces this).
+    bvh_node_min: jnp.ndarray  # [M,3]
+    bvh_node_max: jnp.ndarray  # [M,3]
+    bvh_escape: jnp.ndarray  # [M] int32
+    bvh_leaf_first: jnp.ndarray  # [M] int32
+    bvh_leaf_count: jnp.ndarray  # [M] int32
+    bvh_prim_order: jnp.ndarray  # [Nt] int32
+    # Packed traversal rows (models/bvh.py formats): nodes as [M,8] f32
+    # rows, primitives leaf-ordered as [N+pad,16] f32 rows.  The planar tree
+    # mixes triangles and accelerated NON-identity-transform rects (each
+    # split into two world-space triangles for the winner search only; rows
+    # carry id*4+kind codes).  Identity-transform rects get their own tree
+    # of native axis-rect rows (exact sweep semantics, ~half the cost of two
+    # triangle tests).  The sphere tree holds world-baked centers.
+    bvh_packed_nodes: jnp.ndarray  # [M,8]
+    bvh_packed_tris: jnp.ndarray  # [N+pad,16]
+    rect_bvh_nodes: jnp.ndarray  # [Mr,8]
+    rect_bvh_rows: jnp.ndarray  # [Nr+pad,16]
+    sph_bvh_nodes: jnp.ndarray  # [Ms,8]
+    sph_bvh_rows: jnp.ndarray  # [Ns+pad,16]
+
+    # --- static (non-pytree) metadata -------------------------------------
+    n_spheres: int = struct.static_field(0)
+    n_rects: int = struct.static_field(0)
+    n_triangles: int = struct.static_field(0)
+    n_media: int = struct.static_field(0)
+    n_bvh_nodes: int = struct.static_field(0)
+    n_rect_bvh_nodes: int = struct.static_field(0)
+    n_sph_bvh_nodes: int = struct.static_field(0)
+    # Which kinds the winner search resolves through a BVH instead of the
+    # linear [B, N] sweep (ops/intersect.closest_hit skips the corresponding
+    # sweep).  Static so they key the jit cache.
+    tri_in_bvh: bool = struct.static_field(False)
+    rect_in_bvh: bool = struct.static_field(False)
+    sph_in_bvh: bool = struct.static_field(False)
+    # Which material/texture kinds actually appear — lets shading evaluate
+    # only the code paths a scene uses (a Cornell box pays nothing for
+    # Perlin-noise gathers or dielectric refraction math).
+    mat_kinds: tuple = struct.static_field(())
+    tex_kinds: tuple = struct.static_field(())
+    # Primitives per BVH leaf (build-time choice; the traversal unrolls this
+    # many masked tests per visited leaf).
+    bvh_leaf_size: int = struct.static_field(16)
+    # Any motion-blurred (moving) sphere present?  When False, ray time
+    # cannot affect radiance, so the camera skips the shutter-time threefry
+    # draw (draws are keyed per-purpose lanes; skipping one never shifts
+    # another).
+    has_motion: bool = struct.static_field(True)
+    # True iff every atlas texel is EXACTLY k/255 as stored f32 (always the
+    # case for decoded uint8 images) — verified at build time by simulating
+    # the packed fetch's f32 arithmetic, so the forward-only packed-texel
+    # path is bit-identical to the row-gather path.
+    atlas_exact_u8: bool = struct.static_field(False)
+
+    @property
+    def num_primitives(self) -> int:
+        return self.n_spheres + self.n_rects + self.n_triangles + self.n_media
+
+    @property
+    def has_accel(self) -> bool:
+        """Any BVH present — rays should be traced in Morton order."""
+        return bool(self.n_bvh_nodes or self.n_rect_bvh_nodes
+                    or self.n_sph_bvh_nodes)
+
+
+@dataclasses.dataclass
+class _Image:
+    texels: np.ndarray  # [h, w, 3] float in [0,1]
+
+
+def rotation_y(degrees: float) -> np.ndarray:
+    """World-from-object rotation about +y (reference: rotate_y,
+    hittable.cpp:25-85: object->world is x' = c*x + s*z, z' = -s*x + c*z)."""
+    t = math.radians(degrees)
+    c, s = math.cos(t), math.sin(t)
+    return np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], dtype=np.float64)
+
+
+def _rect_quads(rects, ids, rots, trans):
+    """Axis-rects (the given original indices) -> two WORLD-space triangles
+    each, for the planar BVH's winner search.  Used only for rects with
+    NON-identity transforms (identity ones get native axis-rect rows in
+    their own tree — models/bvh 'rect' format).  Corners are computed in
+    object space with the same free-axis order as ops/intersect._rect_t
+    (axis 0 -> (1,2), 1 -> (0,2), 2 -> (0,1)) and baked through the rect's
+    world-from-object transform — exact for rigid transforms.  Returns
+    (v0, v1, v2 [2N,3], codes [2N]); both triangles of rect i carry code
+    i*4 + PRIM_RECT, so the traversal's winner decodes straight to the rect
+    id and the differentiable hit-record recompute runs on the original
+    rect parameterization.  KNOWN EDGE (quad split only): a degenerate rect
+    (lo == hi on a free axis) is hittable by the sweep's inclusive bound
+    test but its triangles have zero normals and never hit, and rays
+    crossing the shared diagonal can miss both triangles at f32-ulp level."""
+    n = len(ids)
+    v0 = np.zeros((2 * n, 3))
+    v1 = np.zeros((2 * n, 3))
+    v2 = np.zeros((2 * n, 3))
+    codes = np.zeros((2 * n,), np.int64)
+    for j, i in enumerate(ids):
+        axis, k, lo, hi, _mat, xf = rects[i]
+        au = 1 if axis == 0 else 0
+        av = 1 if axis == 2 else 2
+        rot, tr = rots[xf], trans[xf]
+
+        def pt(u, v):
+            p = np.zeros(3)
+            p[axis] = k
+            p[au] = u
+            p[av] = v
+            return rot @ p + tr
+
+        p00, p10 = pt(lo[0], lo[1]), pt(hi[0], lo[1])
+        p11, p01 = pt(hi[0], hi[1]), pt(lo[0], hi[1])
+        v0[2 * j], v1[2 * j], v2[2 * j] = p00, p10, p11
+        v0[2 * j + 1], v1[2 * j + 1], v2[2 * j + 1] = p00, p11, p01
+        codes[2 * j] = codes[2 * j + 1] = i * 4 + PRIM_RECT
+    return v0, v1, v2, codes
+
+
+class SceneBuilder:
+    """Host-side scene construction producing a :class:`SceneData`.
+
+    Mirrors the ergonomics of the reference's ``scene_manager`` builders
+    (src/scene_manager.cpp) but emits flat arrays.  All geometry is built in
+    float64 and cast to float32 at :meth:`build`.
+    """
+
+    def __init__(self, background=(0.0, 0.0, 0.0), seed: int = 1234):
+        self.background = np.asarray(background, np.float64)
+        # Host RNG used for scene randomness (random scenes, perlin tables).
+        # Replaces the reference's process-wide mt19937 consumed during scene
+        # construction (SURVEY appendix: construction precedes rendering).
+        self.rand = np.random.default_rng(seed)
+
+        self._spheres = []  # (c0, c1, t0, t1, r, mat, xf, has_uv)
+        self._rects = []  # (axis, k, lo2, hi2, mat, xf)
+        self._tris = []  # (v0, v1, v2, uv0, uv1, uv2, mat, xf)
+        self._media = []  # (kind, a3, b3, neg_inv_density, mat, xf)
+        self._xforms = [(np.eye(3), np.zeros(3))]  # id 0 = identity
+        self._materials = []  # (kind, tex, fuzz, ir)
+        self._textures = []  # (kind, ca, cb, cc, scale, aux)
+        self._images: list[_Image] = []
+        self._perlins = []  # (ranvec [256,3], perm [3,256])
+
+    # --- transforms -------------------------------------------------------
+
+    def transform(self, rotate_y_deg: float = 0.0, translate=(0.0, 0.0, 0.0)) -> int:
+        """Register a world-from-object transform: first rotate about y, then
+        translate — the composition order used by every instanced object in
+        the reference scenes (rotate_y wrapped in translate,
+        scene_manager.cpp:129-137)."""
+        rot = rotation_y(rotate_y_deg)
+        tr = np.asarray(translate, np.float64)
+        if rotate_y_deg == 0.0 and not tr.any():
+            return 0
+        self._xforms.append((rot, tr))
+        return len(self._xforms) - 1
+
+    # --- textures ---------------------------------------------------------
+
+    def _add_texture(self, kind, ca=(0, 0, 0), cb=(0, 0, 0), cc=(0, 0, 0), scale=0.0, aux=-1) -> int:
+        self._textures.append(
+            (kind, np.asarray(ca, np.float64), np.asarray(cb, np.float64),
+             np.asarray(cc, np.float64), float(scale), int(aux))
+        )
+        return len(self._textures) - 1
+
+    def solid_texture(self, color) -> int:
+        return self._add_texture(TEX_SOLID, ca=color)
+
+    def checker_texture(self, even, odd) -> int:
+        """3D sin-product checker (texture.h:39-45)."""
+        return self._add_texture(TEX_CHECKER, ca=even, cb=odd)
+
+    def noise_texture(self, scale: float) -> int:
+        """Grayscale Perlin 0.5*(1+noise(scale*p)) (texture.h:57-59).  Each
+        call creates a fresh Perlin instance with its own random tables,
+        matching the reference's per-texture ``perlin`` member."""
+        ranvec = self.rand.uniform(-1.0, 1.0, size=(PERLIN_POINT_COUNT, 3))
+        ranvec /= np.linalg.norm(ranvec, axis=-1, keepdims=True)
+        perm = np.stack(
+            [self.rand.permutation(PERLIN_POINT_COUNT) for _ in range(3)]
+        ).astype(np.int32)
+        self._perlins.append((ranvec, perm))
+        return self._add_texture(TEX_NOISE, scale=scale, aux=len(self._perlins) - 1)
+
+    def image_texture(self, image) -> int:
+        """Image-mapped texture.  ``image`` is an [h,w,3] float array in
+        [0,1], an [h,w,3] uint8 array, or None.  None reproduces the
+        reference's missing-file fallback: solid cyan (texture.h:91-92)."""
+        if image is None:
+            texels = np.full((1, 1, 3), (0.0, 1.0, 1.0), np.float64)
+        else:
+            texels = np.asarray(image, np.float64)
+            if texels.dtype != np.float64 or texels.max() > 1.0 + 1e-6:
+                texels = np.asarray(image, np.float64) / 255.0
+            if texels.ndim == 2:
+                texels = np.repeat(texels[..., None], 3, axis=-1)
+            texels = texels[..., :3]
+        self._images.append(_Image(texels))
+        return self._add_texture(TEX_IMAGE, aux=len(self._images) - 1)
+
+    def barycentric_texture(self, a, b, c) -> int:
+        """u*A + v*B + (1-u-v)*C blend over triangle barycentrics
+        (texture.h:121-133)."""
+        return self._add_texture(TEX_BARYCENTRIC, ca=a, cb=b, cc=c)
+
+    def _tex_id(self, color=None, texture=None) -> int:
+        if (color is None) == (texture is None):
+            raise ValueError("exactly one of color/texture required")
+        return self.solid_texture(color) if texture is None else texture
+
+    # --- materials --------------------------------------------------------
+
+    def _add_material(self, kind, tex=0, fuzz=0.0, ir=1.0) -> int:
+        self._materials.append((kind, int(tex), float(fuzz), float(ir)))
+        return len(self._materials) - 1
+
+    def lambertian(self, color=None, texture=None) -> int:
+        return self._add_material(MAT_LAMBERTIAN, tex=self._tex_id(color, texture))
+
+    def metal(self, color, fuzz=0.0) -> int:
+        # fuzz clamped to <= 1 in the reference ctor (material.h:47)
+        return self._add_material(
+            MAT_METAL, tex=self.solid_texture(color), fuzz=min(float(fuzz), 1.0)
+        )
+
+    def dielectric(self, index_of_refraction: float) -> int:
+        return self._add_material(MAT_DIELECTRIC, tex=self.solid_texture((1, 1, 1)), ir=index_of_refraction)
+
+    def diffuse_light(self, color=None, texture=None) -> int:
+        return self._add_material(MAT_DIFFUSE_LIGHT, tex=self._tex_id(color, texture))
+
+    def isotropic(self, color=None, texture=None) -> int:
+        return self._add_material(MAT_ISOTROPIC, tex=self._tex_id(color, texture))
+
+    # --- primitives -------------------------------------------------------
+
+    def sphere(self, center, radius, material: int, xform: int = 0):
+        c = np.asarray(center, np.float64)
+        self._spheres.append((c, c, 0.0, 1.0, float(radius), material, xform, 1.0))
+
+    def moving_sphere(self, center0, center1, time0, time1, radius, material: int, xform: int = 0):
+        self._spheres.append(
+            (np.asarray(center0, np.float64), np.asarray(center1, np.float64),
+             float(time0), float(time1), float(radius), material, xform, 0.0)
+        )
+
+    def _rect(self, axis, k, lo, hi, material, xform):
+        self._rects.append(
+            (axis, float(k), np.asarray(lo, np.float64), np.asarray(hi, np.float64),
+             material, xform)
+        )
+
+    def xy_rect(self, x0, x1, y0, y1, k, material: int, xform: int = 0):
+        self._rect(2, k, (x0, y0), (x1, y1), material, xform)
+
+    def xz_rect(self, x0, x1, z0, z1, k, material: int, xform: int = 0):
+        self._rect(1, k, (x0, z0), (x1, z1), material, xform)
+
+    def yz_rect(self, y0, y1, z0, z1, k, material: int, xform: int = 0):
+        self._rect(0, k, (y0, z0), (y1, z1), material, xform)
+
+    def box(self, p0, p1, material: int, xform: int = 0):
+        """Axis-aligned box as 6 rects (reference: box.cpp:3-15)."""
+        x0, y0, z0 = np.asarray(p0, np.float64)
+        x1, y1, z1 = np.asarray(p1, np.float64)
+        self.xy_rect(x0, x1, y0, y1, z1, material, xform)
+        self.xy_rect(x0, x1, y0, y1, z0, material, xform)
+        self.xz_rect(x0, x1, z0, z1, y1, material, xform)
+        self.xz_rect(x0, x1, z0, z1, y0, material, xform)
+        self.yz_rect(y0, y1, z0, z1, x1, material, xform)
+        self.yz_rect(y0, y1, z0, z1, x0, material, xform)
+
+    def triangle(self, v0, v1, v2, material: int, uvs: Optional[Sequence] = None, xform: int = 0):
+        if uvs is None:
+            uvs = ((0.0, 0.0), (0.0, 0.0), (0.0, 0.0))
+        self._tris.append(
+            (np.asarray(v0, np.float64), np.asarray(v1, np.float64),
+             np.asarray(v2, np.float64),
+             np.asarray(uvs[0], np.float64), np.asarray(uvs[1], np.float64),
+             np.asarray(uvs[2], np.float64), material, xform)
+        )
+
+    def constant_medium_sphere(self, center, radius, density, color=None, texture=None, xform: int = 0):
+        mat = self.isotropic(color=color, texture=texture)
+        self._media.append(
+            (MED_SPHERE, np.asarray(center, np.float64),
+             np.array([radius, 0.0, 0.0]), -1.0 / density, mat, xform)
+        )
+
+    def constant_medium_box(self, p0, p1, density, color=None, texture=None, xform: int = 0):
+        mat = self.isotropic(color=color, texture=texture)
+        self._media.append(
+            (MED_BOX, np.asarray(p0, np.float64), np.asarray(p1, np.float64),
+             -1.0 / density, mat, xform)
+        )
+
+    # --- assembly ---------------------------------------------------------
+
+    # Build a triangle BVH when the mesh is at least this large ('auto').
+    BVH_AUTO_THRESHOLD = 64
+    # Accelerate rects / spheres through a BVH above these counts ('auto').
+    # Small scenes stay on the one-[B,N]-sweep path; the final scene's 2,401
+    # rects + 1,006 spheres are far too many for a linear sweep.
+    RECT_BVH_THRESHOLD = 64
+    SPHERE_BVH_THRESHOLD = 64
+
+    def build(self, dtype=jnp.float32, bvh="auto", bvh_leaf_size: int = 16,
+              rect_bvh="auto", sphere_bvh="auto") -> SceneData:
+        f = lambda x, shape: (  # noqa: E731
+            jnp.asarray(np.asarray(x, np.float64).reshape(shape), dtype)
+        )
+        i32 = lambda x, shape: (  # noqa: E731
+            jnp.asarray(np.asarray(x, np.int64).reshape(shape), jnp.int32)
+        )
+
+        ns, nr, nt, nm = map(len, (self._spheres, self._rects, self._tris, self._media))
+
+        sph = list(zip(*self._spheres)) if ns else [[]] * 8
+        rect = list(zip(*self._rects)) if nr else [[]] * 6
+        tri = list(zip(*self._tris)) if nt else [[]] * 8
+        med = list(zip(*self._media)) if nm else [[]] * 6
+
+        if not self._materials:
+            self._add_material(MAT_LAMBERTIAN, tex=self.solid_texture((0.5, 0.5, 0.5)))
+        mats = list(zip(*self._materials))
+        texs = list(zip(*self._textures))
+
+        # Image atlas.
+        if self._images:
+            offs, ws, hs, rows = [], [], [], []
+            off = 0
+            for im in self._images:
+                h, w = im.texels.shape[:2]
+                offs.append(off)
+                ws.append(w)
+                hs.append(h)
+                rows.append(im.texels.reshape(-1, 3))
+                off += h * w
+            atlas = np.concatenate(rows, axis=0)
+        else:
+            offs, ws, hs = [0], [1], [1]
+            atlas = np.zeros((1, 3))
+
+        # Packed 8:8:8 texels for the forward-only fast fetch, validated by
+        # simulating the device unpack in f32: k recovered exactly, then
+        # k / 255 (single correctly-rounded f32 divide) must equal the
+        # stored f32 atlas value bit-for-bit for EVERY channel.
+        a32 = atlas.astype(np.float32)
+        k8 = np.round(a32.astype(np.float64) * 255.0)
+        atlas_exact = bool(
+            np.all((k8 >= 0) & (k8 <= 255))
+            and np.array_equal(
+                k8.astype(np.float32) / np.float32(255.0), a32)
+        )
+        if atlas_exact:
+            atlas_packed = (k8[:, 0] * 65536.0 + k8[:, 1] * 256.0 + k8[:, 2])
+        else:
+            atlas_packed = np.zeros((1,))
+
+        if self._perlins:
+            ranvec = np.stack([p[0] for p in self._perlins])
+            perm = np.stack([p[1] for p in self._perlins])
+        else:
+            ranvec = np.zeros((1, PERLIN_POINT_COUNT, 3))
+            perm = np.tile(np.arange(PERLIN_POINT_COUNT, dtype=np.int32), (1, 3, 1))
+
+        rots = np.stack([x[0] for x in self._xforms])
+        trans = np.stack([x[1] for x in self._xforms])
+
+        # --- BVH acceleration (host build, models/bvh.py) -----------------
+        # Planar tree: triangles (identity transforms only — true for all
+        # mesh scenes; instanced triangle sets fall back to the sweep) plus
+        # accelerated rects, each baked to two WORLD-space triangles for the
+        # winner search (any rigid transform is exact on the corners; the
+        # hit record is recomputed from the original rect parameters).
+        # Sphere tree: world-baked centers — a rigid transform maps a sphere
+        # to a sphere and the center lerp commutes with the affine map, so
+        # the t values equal the object-space test's.
+        want_bvh = (bvh is True) or (bvh == "auto" and nt >= self.BVH_AUTO_THRESHOLD)
+        tri_xf_all_identity = nt == 0 or all(int(x[7]) == 0 for x in self._tris)
+        tri_in_bvh = want_bvh and nt > 0 and tri_xf_all_identity
+        rect_in_bvh = nr > 0 and (
+            rect_bvh is True
+            or (rect_bvh == "auto" and bvh is not False
+                and nr >= self.RECT_BVH_THRESHOLD)
+        )
+        sph_in_bvh = ns > 0 and (
+            sphere_bvh is True
+            or (sphere_bvh == "auto" and bvh is not False
+                and ns >= self.SPHERE_BVH_THRESHOLD)
+        )
+
+        z3 = jnp.zeros((0, 3), dtype)
+        zi = jnp.zeros((0,), jnp.int32)
+        bvh_arrays = dict(
+            bvh_node_min=z3, bvh_node_max=z3, bvh_escape=zi,
+            bvh_leaf_first=zi, bvh_leaf_count=zi, bvh_prim_order=zi,
+            bvh_packed_nodes=jnp.zeros((0, 8), dtype),
+            bvh_packed_tris=jnp.zeros((0, 16), dtype),
+            rect_bvh_nodes=jnp.zeros((0, 8), dtype),
+            rect_bvh_rows=jnp.zeros((0, 16), dtype),
+            sph_bvh_nodes=jnp.zeros((0, 8), dtype),
+            sph_bvh_rows=jnp.zeros((0, 16), dtype),
+        )
+        n_bvh = 0
+        n_rect_bvh = 0
+        n_sph_bvh = 0
+        # Identity-transform rects go to the native axis-rect tree; rects
+        # with transforms are quad-split into the planar (triangle) tree.
+        rect_native_ids = [i for i, rc in enumerate(self._rects) if rc[5] == 0]
+        rect_quad_ids = [i for i, rc in enumerate(self._rects) if rc[5] != 0]
+        if tri_in_bvh or (rect_in_bvh and rect_quad_ids):
+            from another_raytracer.models import bvh as bvh_lib
+
+            pv0, pv1, pv2, pcodes = [], [], [], []
+            if tri_in_bvh:
+                pv0.append(np.stack(tri[0]).reshape(nt, 3))
+                pv1.append(np.stack(tri[1]).reshape(nt, 3))
+                pv2.append(np.stack(tri[2]).reshape(nt, 3))
+                pcodes.append(np.arange(nt, dtype=np.int64) * 4 + PRIM_TRIANGLE)
+            if rect_in_bvh and rect_quad_ids:
+                qv0, qv1, qv2, qcodes = _rect_quads(
+                    self._rects, rect_quad_ids, rots, trans)
+                pv0.append(qv0)
+                pv1.append(qv1)
+                pv2.append(qv2)
+                pcodes.append(qcodes)
+            v0 = np.concatenate(pv0)
+            v1 = np.concatenate(pv1)
+            v2 = np.concatenate(pv2)
+            codes = np.concatenate(pcodes)
+            tree = bvh_lib.build(*bvh_lib.triangle_bounds(v0, v1, v2),
+                                 leaf_size=bvh_leaf_size)
+            packed_nodes, packed_rows = bvh_lib.pack_planar(
+                tree, v0, v1, v2, codes)
+            bvh_arrays.update(
+                bvh_node_min=f(tree.node_min, tree.node_min.shape),
+                bvh_node_max=f(tree.node_max, tree.node_max.shape),
+                bvh_escape=jnp.asarray(tree.escape),
+                bvh_leaf_first=jnp.asarray(tree.leaf_first),
+                bvh_leaf_count=jnp.asarray(tree.leaf_count),
+                bvh_prim_order=jnp.asarray(tree.prim_order),
+                bvh_packed_nodes=jnp.asarray(packed_nodes),
+                bvh_packed_tris=jnp.asarray(packed_rows),
+            )
+            n_bvh = tree.num_nodes
+        if rect_in_bvh and rect_native_ids:
+            from another_raytracer.models import bvh as bvh_lib
+
+            ids = np.asarray(rect_native_ids, np.int64)
+            r_axis = np.asarray([self._rects[i][0] for i in ids], np.int64)
+            r_k = np.asarray([self._rects[i][1] for i in ids], np.float64)
+            r_lo = np.stack([self._rects[i][2] for i in ids])
+            r_hi = np.stack([self._rects[i][3] for i in ids])
+            tree_r = bvh_lib.build(
+                *bvh_lib.rect_bounds(r_axis, r_k, r_lo, r_hi),
+                leaf_size=bvh_leaf_size)
+            rect_nodes, rect_rows = bvh_lib.pack_rects(
+                tree_r, r_axis, r_k, r_lo, r_hi, ids * 4 + PRIM_RECT)
+            bvh_arrays.update(
+                rect_bvh_nodes=jnp.asarray(rect_nodes),
+                rect_bvh_rows=jnp.asarray(rect_rows),
+            )
+            n_rect_bvh = tree_r.num_nodes
+        if sph_in_bvh:
+            from another_raytracer.models import bvh as bvh_lib
+
+            c0 = np.stack(sph[0]).reshape(ns, 3)
+            c1 = np.stack(sph[1]).reshape(ns, 3)
+            t0s = np.asarray(sph[2], np.float64)
+            t1s = np.asarray(sph[3], np.float64)
+            rr = np.asarray(sph[4], np.float64)
+            xfi = np.asarray(sph[6], np.int64)
+            c0w = np.einsum("nij,nj->ni", rots[xfi], c0) + trans[xfi]
+            c1w = np.einsum("nij,nj->ni", rots[xfi], c1) + trans[xfi]
+            tree_s = bvh_lib.build(
+                *bvh_lib.sphere_bounds(c0w, c1w, rr, t0s, t1s),
+                leaf_size=bvh_leaf_size)
+            sph_nodes, sph_rows = bvh_lib.pack_spheres(
+                tree_s, c0w, c1w, t0s, t1s, rr)
+            bvh_arrays.update(
+                sph_bvh_nodes=jnp.asarray(sph_nodes),
+                sph_bvh_rows=jnp.asarray(sph_rows),
+            )
+            n_sph_bvh = tree_s.num_nodes
+
+        return SceneData(
+            sph_c0=f(sph[0], (ns, 3)), sph_c1=f(sph[1], (ns, 3)),
+            sph_t0=f(sph[2], (ns,)), sph_t1=f(sph[3], (ns,)),
+            sph_r=f(sph[4], (ns,)), sph_mat=i32(sph[5], (ns,)),
+            sph_xf=i32(sph[6], (ns,)), sph_has_uv=f(sph[7], (ns,)),
+            rect_axis=i32(rect[0], (nr,)), rect_k=f(rect[1], (nr,)),
+            rect_lo=f(rect[2], (nr, 2)), rect_hi=f(rect[3], (nr, 2)),
+            rect_mat=i32(rect[4], (nr,)), rect_xf=i32(rect[5], (nr,)),
+            tri_v0=f(tri[0], (nt, 3)), tri_v1=f(tri[1], (nt, 3)),
+            tri_v2=f(tri[2], (nt, 3)),
+            tri_uv0=f(tri[3], (nt, 2)), tri_uv1=f(tri[4], (nt, 2)),
+            tri_uv2=f(tri[5], (nt, 2)),
+            tri_mat=i32(tri[6], (nt,)), tri_xf=i32(tri[7], (nt,)),
+            med_kind=i32(med[0], (nm,)), med_a=f(med[1], (nm, 3)),
+            med_b=f(med[2], (nm, 3)), med_neg_inv_density=f(med[3], (nm,)),
+            med_mat=i32(med[4], (nm,)), med_xf=i32(med[5], (nm,)),
+            xf_rot=f(rots, rots.shape), xf_trans=f(trans, trans.shape),
+            mat_kind=i32(mats[0], (-1,)), mat_tex=i32(mats[1], (-1,)),
+            mat_fuzz=f(mats[2], (-1,)), mat_ir=f(mats[3], (-1,)),
+            tex_kind=i32(texs[0], (-1,)), tex_ca=f(texs[1], (len(self._textures), 3)),
+            tex_cb=f(texs[2], (len(self._textures), 3)),
+            tex_cc=f(texs[3], (len(self._textures), 3)),
+            tex_scale=f(texs[4], (-1,)), tex_aux=i32(texs[5], (-1,)),
+            atlas=f(atlas, atlas.shape),
+            atlas_packed=f(atlas_packed, atlas_packed.shape),
+            img_off=i32(offs, (-1,)),
+            img_w=i32(ws, (-1,)), img_h=i32(hs, (-1,)),
+            per_ranvec=f(ranvec, ranvec.shape),
+            per_perm=jnp.asarray(perm, jnp.int32),
+            background=f(self.background, (3,)),
+            **bvh_arrays,
+            n_spheres=ns, n_rects=nr, n_triangles=nt, n_media=nm,
+            n_bvh_nodes=n_bvh, n_rect_bvh_nodes=n_rect_bvh,
+            n_sph_bvh_nodes=n_sph_bvh,
+            tri_in_bvh=tri_in_bvh, rect_in_bvh=rect_in_bvh,
+            sph_in_bvh=sph_in_bvh,
+            bvh_leaf_size=bvh_leaf_size,
+            mat_kinds=tuple(sorted({m[0] for m in self._materials})),
+            tex_kinds=tuple(sorted({t[0] for t in self._textures})),
+            has_motion=ns > 0 and not np.array_equal(
+                np.asarray(sph[0]), np.asarray(sph[1])
+            ),
+            atlas_exact_u8=atlas_exact,
+        )

@@ -1,12 +1,12 @@
-// Native runtime for another_raytracer_tpu: wavefront .obj/.mtl parser.
+// Native runtime for another_raytracer: wavefront .obj/.mtl parser.
 //
 // The reference uses the vendored rapidobj header library for its cold-path
 // mesh ingestion (reference: src/primitives/mesh.h:31-64).  This is the
-// equivalent native component for the TPU framework: a from-scratch C++20
+// equivalent native component for the accelerator framework: a from-scratch C++20
 // parser that fan-triangulates polygons and emits the flat triangle arrays
 // the SoA scene builder consumes (positions, per-vertex texcoords, per-face
 // material ids), exposed through a C ABI consumed via ctypes
-// (another_raytracer_tpu/utils/native.py).  A pure-Python fallback exists;
+// (another_raytracer/utils/native.py).  A pure-Python fallback exists;
 // this path is ~30x faster on large meshes.
 //
 // Build: cmake -S native -B native/build && cmake --build native/build

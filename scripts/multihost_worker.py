@@ -34,7 +34,7 @@ def main():
 
     import numpy as np
 
-    from another_raytracer_tpu.parallel import multihost
+    from another_raytracer.parallel import multihost
 
     # Initialize BEFORE importing render modules: anything that touches a
     # backend pins the process-local device view.
@@ -42,13 +42,13 @@ def main():
         coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
         process_id=pid)
 
-    from another_raytracer_tpu.parallel import sharding
+    from another_raytracer.parallel import sharding
     assert (idx, cnt) == (pid, nproc), (idx, cnt)
     n_global = len(jax.devices())
     assert n_global == DEVICES_PER_PROC * nproc, n_global
 
-    from another_raytracer_tpu.models.scene import SceneBuilder
-    from another_raytracer_tpu.ops import camera as camera_lib
+    from another_raytracer.models.scene import SceneBuilder
+    from another_raytracer.ops import camera as camera_lib
 
     b = SceneBuilder(background=(0.6, 0.7, 0.9), seed=4)
     b.sphere((0, -100.5, -1), 100, b.lambertian(color=(0.4, 0.7, 0.3)))

@@ -2,20 +2,20 @@
 
 The reference BVHs its random-scene spheres and the final scene's ground
 boxes / sphere cluster (scene_manager.cpp:61,176,231); here those kinds
-resolve through packed BVHs (planar quad-triangles / world-baked sphere
-tree — ops/pallas/bvh_kernel.py row formats) while the hit record is still
-recomputed from the original primitive parameterization.  These tests pin
-winner-level equivalence of the accelerated paths against the sweep, on the
-XLA traversal (CPU) and the Pallas kernels in interpret mode.
+resolve through packed BVHs (planar quad-triangles / native rects /
+world-baked sphere tree — models/bvh.py row formats) while the hit record is
+still recomputed from the original primitive parameterization.  These tests
+pin winner-level equivalence of the XLA traversal (ops/bvh.py) against the
+sweep.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from another_raytracer_tpu.models.scene import SceneBuilder
-from another_raytracer_tpu.ops import intersect
-from another_raytracer_tpu.ops.vec3 import V3
+from another_raytracer.models.scene import SceneBuilder
+from another_raytracer.ops import intersect
+from another_raytracer.ops.vec3 import V3
 
 
 def _mixed_scene(**build_kw):
@@ -75,48 +75,56 @@ def test_accel_matches_sweep():
     np.testing.assert_allclose(t1[hit], t2[hit], rtol=5e-4, atol=1e-5)
 
 
-def test_pallas_kernels_match_xla_traversal_interpret():
-    """Interpret-mode Pallas (planar quads + spheres) vs the XLA traversal
-    on identical packed trees."""
-    acc = _mixed_scene(bvh=False, rect_bvh=True, sphere_bvh=True,
-                       pallas_bvh=False)
-    pal = acc.replace(use_pallas_bvh=True)
-    o, d, time, um = _rays(B=2048)
+@pytest.mark.parametrize("prim", ["planar", "rect", "sphere"])
+def test_traverse_packed_matches_linear_sweep(prim):
+    """ops/bvh.traverse_packed on one packed tree against a brute-force
+    test of every packed row (same row arithmetic, no tree): identical
+    winners and t.  Spheres include moving ones (time lerp)."""
+    from another_raytracer.ops import bvh as bvh_ops
 
-    from another_raytracer_tpu.ops import bvh as bvh_ops
-    from another_raytracer_tpu.ops.pallas import bvh_kernel
-
+    acc = _mixed_scene(bvh=False, rect_bvh=True, sphere_bvh=True)
+    nodes, rows = {
+        "planar": (acc.bvh_packed_nodes, acc.bvh_packed_tris),
+        "rect": (acc.rect_bvh_nodes, acc.rect_bvh_rows),
+        "sphere": (acc.sph_bvh_nodes, acc.sph_bvh_rows),
+    }[prim]
+    assert nodes.shape[0] > 1
+    o, d, time, _ = _rays(B=2048, seed=3)
     B = o.x.shape[0]
     init_t = jnp.full((B,), intersect.BIG, jnp.float32)
-    init_i = jnp.zeros((B,), jnp.int32)
-    assert acc.n_bvh_nodes and acc.n_rect_bvh_nodes and acc.n_sph_bvh_nodes
-    for nodes, rows, prim in (
-        (acc.bvh_packed_nodes, acc.bvh_packed_tris, "planar"),
-        (acc.rect_bvh_nodes, acc.rect_bvh_rows, "rect"),
-        (acc.sph_bvh_nodes, acc.sph_bvh_rows, "sphere"),
-    ):
-        tx, cx, hx = bvh_ops.traverse_packed(
-            nodes, rows, o, d, time, 1e-3, init_t, init_i,
+    init_i = jnp.full((B,), -1, jnp.int32)
+    t_bvh, c_bvh, h_bvh = bvh_ops.traverse_packed(
+        nodes, rows, o, d, time, 1e-3, init_t, init_i,
+        leaf_size=acc.bvh_leaf_size, prim=prim)
+
+    # Brute force: a one-node tree whose single leaf holds every row.
+    n_rows = int(rows.shape[0])
+    t_lin, c_lin, h_lin = init_t, init_i, jnp.zeros((B,), bool)
+    for first in range(0, n_rows, acc.bvh_leaf_size):
+        count = min(acc.bvh_leaf_size, n_rows - first)
+        flat = np.array([[-1e9, -1e9, -1e9, 1e9, 1e9, 1e9, 1.0,
+                          first * 64 + count]], np.float32)
+        t_lin, c_lin, h = bvh_ops.traverse_packed(
+            jnp.asarray(flat), rows, o, d, time, 1e-3, t_lin, c_lin,
             leaf_size=acc.bvh_leaf_size, prim=prim)
-        tk, ck, hk = bvh_kernel.bvh_closest_hit(
-            nodes, rows, o, d, init_t, init_i, time=time,
-            leaf_size=acc.bvh_leaf_size, block=1024, interpret=True,
-            prim=prim)
-        np.testing.assert_array_equal(np.asarray(hx), np.asarray(hk)), prim
-        hit = np.asarray(hx)
-        np.testing.assert_array_equal(np.asarray(cx)[hit], np.asarray(ck)[hit])
-        np.testing.assert_allclose(np.asarray(tx)[hit], np.asarray(tk)[hit],
-                                   rtol=2e-5)
+        h_lin = h_lin | h
+    h_bvh, h_lin = np.asarray(h_bvh), np.asarray(h_lin)
+    np.testing.assert_array_equal(h_bvh, h_lin)
+    assert h_bvh.mean() > 0.05, prim  # the rays do hit this tree
+    np.testing.assert_array_equal(np.asarray(c_bvh)[h_bvh],
+                                  np.asarray(c_lin)[h_lin])
+    np.testing.assert_allclose(np.asarray(t_bvh)[h_bvh],
+                               np.asarray(t_lin)[h_lin], rtol=1e-6)
 
 
 def test_final_scene_uses_accel_and_renders():
     """The final scene's 2,401 rects + 1,006 spheres route through BVHs and
     still render non-black (structure-level gate; oracle parity covers the
     image in test_vs_oracle.py)."""
-    from another_raytracer_tpu.models import library
-    from another_raytracer_tpu.ops import camera as camera_lib
-    from another_raytracer_tpu.ops import render as render_lib
-    from another_raytracer_tpu.config import RenderConfig
+    from another_raytracer.models import library
+    from another_raytracer.ops import camera as camera_lib
+    from another_raytracer.ops import render as render_lib
+    from another_raytracer.config import RenderConfig
 
     scene, cp = library.final_scene()
     assert scene.rect_in_bvh and scene.sph_in_bvh

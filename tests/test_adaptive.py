@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from another_raytracer_tpu.config import RenderConfig, RenderMode
-from another_raytracer_tpu.models import library
-from another_raytracer_tpu.ops import camera as camera_lib
-from another_raytracer_tpu.ops import color as color_lib
-from another_raytracer_tpu.ops import render as render_lib
+from another_raytracer.config import RenderConfig, RenderMode
+from another_raytracer.models import library
+from another_raytracer.ops import camera as camera_lib
+from another_raytracer.ops import color as color_lib
+from another_raytracer.ops import render as render_lib
 
 W, H, SPP, DEPTH = 48, 36, 4, 4
 
@@ -27,7 +27,7 @@ def test_adaptive_matches_exact_on_traced_pixels():
         scene, cam, jnp.uint32(1), width=W, height=H, spp=SPP,
         samples_per_pass=2, max_depth=DEPTH, t_min=1e-3,
     )
-    from another_raytracer_tpu.ops import vec3
+    from another_raytracer.ops import vec3
     exact_img = np.asarray(color_lib.to_uint8(vec3.to_numpy(exact), SPP)).reshape(H, W, 3)
 
     # Big-square corner pixels are always traced exactly: identical values.
@@ -80,8 +80,8 @@ def test_adaptive_sharded_matches_single_device():
     default mode runs over 4 threads; ours must scale over chips)."""
     import jax
 
-    from another_raytracer_tpu.ops import adaptive as adaptive_lib
-    from another_raytracer_tpu.parallel import sharding
+    from another_raytracer.ops import adaptive as adaptive_lib
+    from another_raytracer.parallel import sharding
 
     scene, cam_params = library.cornell_box()
     cam = camera_lib.make_camera(aspect_ratio=W / H, **cam_params)
@@ -98,6 +98,7 @@ def test_adaptive_sharded_matches_single_device():
     assert s_mesh["mesh"] == {"tile": 4, "spp": 2}
     np.testing.assert_array_equal(img_mesh, img_single)
     assert s_mesh["traced_pixels"] == s_single["traced_pixels"]
+    assert s_mesh["segments"] == s_single["segments"] > 0
 
     # The default dispatch (render() with >1 device) also shards.
     img_def, s_def = render_lib.render(scene, cam, cfg)
@@ -109,7 +110,7 @@ def test_adaptive_streams_progress_and_image_unchanged():
     """--mode adaptive --live/--preview: the work frame streams per level
     (reference: per-square dgui.show, engine.h:307) and the final image is
     bit-identical to a plain adaptive render (round-2 VERDICT #5)."""
-    from another_raytracer_tpu.utils.preview import ProgressivePreview
+    from another_raytracer.utils.preview import ProgressivePreview
 
     scene, cam_params = library.cornell_box()
     cam = camera_lib.make_camera(aspect_ratio=W / H, **cam_params)
@@ -138,7 +139,7 @@ def test_adaptive_streams_progress_and_image_unchanged():
 
 
 def test_sharded_modes_reject_progress():
-    from another_raytracer_tpu.utils.preview import ProgressivePreview
+    from another_raytracer.utils.preview import ProgressivePreview
 
     scene, cam_params = library.cornell_box()
     cam = camera_lib.make_camera(aspect_ratio=W / H, **cam_params)
@@ -147,3 +148,19 @@ def test_sharded_modes_reject_progress():
     prev = ProgressivePreview(path=None, width=W, height=H, viewer=object())
     with pytest.raises(ValueError, match="cannot stream progress"):
         render_lib.render(scene, cam, cfg, progress=prev)
+
+
+@pytest.mark.parametrize("segs", [0, 1, 65535, 65536, 97_200 * 1000,
+                                  2**31 - 1])
+def test_segment_packing_is_exact(segs):
+    # The one-fetch packing carries the segment count as two f32 halves;
+    # a count bitcast into one f32 would be a denormal that flush-to-zero
+    # fusions zero out (seen on the sharded path).
+    from another_raytracer.ops import adaptive as adaptive_lib
+    from another_raytracer.ops.vec3 import V3
+
+    z = jnp.zeros((4,), jnp.float32)
+    packed = np.asarray(adaptive_lib._pack(V3(z, z + 1, z + 2),
+                                           jnp.int32(segs)))
+    assert packed.shape == (14,)
+    assert adaptive_lib._unpack_segments(packed[12:]) == segs

@@ -4,11 +4,11 @@ of the stackless traversal vs the linear intersect-everything path."""
 import numpy as np
 import jax.numpy as jnp
 
-from another_raytracer_tpu.models import bvh as bvh_lib
-from another_raytracer_tpu.models.scene import SceneBuilder
-from another_raytracer_tpu.ops import bvh as bvh_ops
-from another_raytracer_tpu.ops import intersect
-from another_raytracer_tpu.ops.vec3 import V3
+from another_raytracer.models import bvh as bvh_lib
+from another_raytracer.models.scene import SceneBuilder
+from another_raytracer.ops import bvh as bvh_ops
+from another_raytracer.ops import intersect
+from another_raytracer.ops.vec3 import V3
 
 
 def random_triangles(n, rng):
@@ -96,12 +96,8 @@ def test_traversal_with_other_kinds_present():
     np.testing.assert_array_equal(np.asarray(i_lin), np.asarray(i_acc))
 
 
-def test_mesh_scene_uses_bvh():
-    from another_raytracer_tpu.utils import assets
-    import pytest
-    if assets.capsule_obj_path() is None:
-        pytest.skip("no assets")
-    from another_raytracer_tpu.models import library
+def test_mesh_scene_uses_bvh(ref_assets):
+    from another_raytracer.models import library
     scene, _ = library.mesh_scene()
     assert scene.n_bvh_nodes > 0
     assert scene.bvh_prim_order.shape[0] == scene.n_triangles

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from another_raytracer_tpu.ops import camera as camera_lib
-from another_raytracer_tpu.ops import color, rng, vecmath
+from another_raytracer.ops import camera as camera_lib
+from another_raytracer.ops import color, rng, vecmath
 
 
 def test_reflect():
@@ -52,8 +52,8 @@ def test_samplers_distributions():
 def test_in_hemisphere_distribution():
     # V3 sampler equivalent of random_in_hemisphere (vec3.h:129-135):
     # a uniform ball point flipped into the normal's hemisphere.
-    from another_raytracer_tpu.ops import vec3
-    from another_raytracer_tpu.ops.vec3 import V3
+    from another_raytracer.ops import vec3
+    from another_raytracer.ops.vec3 import V3
 
     u = np.random.default_rng(1).uniform(size=(3, 20000)).astype(np.float32)
     n = V3.full_like(jnp.asarray(u[0]), 0.0, 1.0, 0.0)

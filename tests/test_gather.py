@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from another_raytracer_tpu.ops import gather
+from another_raytracer.ops import gather
 
 
 def test_dense_matches_gather():

@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from another_raytracer_tpu.grad import diff
-from another_raytracer_tpu.models.scene import SceneBuilder
-from another_raytracer_tpu.ops import camera as camera_lib
+from another_raytracer.grad import diff
+from another_raytracer.models.scene import SceneBuilder
+from another_raytracer.ops import camera as camera_lib
 
 W, H, SPP, DEPTH = 24, 16, 4, 4
 
@@ -77,12 +77,12 @@ def test_train_step_reduces_loss():
     target_scene = scene.replace(
         tex_ca=scene.tex_ca.at[1].set(jnp.array([0.9, 0.1, 0.1]))
     )
-    from another_raytracer_tpu.ops import render as render_lib
+    from another_raytracer.ops import render as render_lib
     acc, _ = render_lib.render_radiance(
         target_scene, cam, jnp.uint32(0), width=W, height=H, spp=SPP,
         samples_per_pass=2, max_depth=DEPTH, t_min=1e-3,
     )
-    from another_raytracer_tpu.ops import vec3
+    from another_raytracer.ops import vec3
     target = jnp.asarray(vec3.to_numpy(acc) / SPP)
 
     state, step = diff.make_train_step(

@@ -13,9 +13,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from another_raytracer_tpu.grad import diff
-from another_raytracer_tpu.models.scene import SceneBuilder
-from another_raytracer_tpu.ops import camera as camera_lib
+from another_raytracer.grad import diff
+from another_raytracer.models.scene import SceneBuilder
+from another_raytracer.ops import camera as camera_lib
 
 W, H, SPP, DEPTH = 16, 12, 2, 2
 

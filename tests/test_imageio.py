@@ -6,7 +6,7 @@ PIL is an optional fast path and the stdlib zlib encoder the guarantee.
 
 import numpy as np
 
-from another_raytracer_tpu.utils import imageio
+from another_raytracer.utils import imageio
 
 
 def test_stdlib_png_roundtrip(tmp_path):

@@ -7,7 +7,7 @@ import urllib.request
 
 import numpy as np
 
-from another_raytracer_tpu.utils.liveview import LiveViewer
+from another_raytracer.utils.liveview import LiveViewer
 
 
 def _get(url):
@@ -29,7 +29,7 @@ def test_viewer_serves_page_frame_and_status():
 
         png, ctype = _get(v.url + "frame.png")
         assert ctype == "image/png" and png[:8] == b"\x89PNG\r\n\x1a\n"
-        from another_raytracer_tpu.utils import imageio
+        from another_raytracer.utils import imageio
 
         assert png == imageio._encode_png(img)
 
@@ -48,10 +48,10 @@ def test_viewer_serves_page_frame_and_status():
 def test_progressive_preview_pushes_to_viewer(tmp_path):
     import jax.numpy as jnp
 
-    from another_raytracer_tpu.config import RenderConfig
-    from another_raytracer_tpu.models.scene import SceneBuilder
-    from another_raytracer_tpu.ops import camera as camera_lib
-    from another_raytracer_tpu.utils import preview as preview_lib
+    from another_raytracer.config import RenderConfig
+    from another_raytracer.models.scene import SceneBuilder
+    from another_raytracer.ops import camera as camera_lib
+    from another_raytracer.utils import preview as preview_lib
 
     W, H = 24, 12
     b = SceneBuilder(background=(0.6, 0.7, 0.9), seed=4)
@@ -73,7 +73,7 @@ def test_progressive_preview_pushes_to_viewer(tmp_path):
         assert s["updates"] == 2  # one per chunk (4 spp / 2 per pass)
         assert s["samples_done"] == 4
         png, _ = _get(v.url + "frame.png")
-        from another_raytracer_tpu.utils import imageio
+        from another_raytracer.utils import imageio
 
         assert png == imageio._encode_png(img)
     finally:

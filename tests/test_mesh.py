@@ -6,9 +6,9 @@ import textwrap
 import numpy as np
 import pytest
 
-from another_raytracer_tpu.models import mesh as mesh_lib
-from another_raytracer_tpu.models.scene import SceneBuilder
-from another_raytracer_tpu.utils import native
+from another_raytracer.models import mesh as mesh_lib
+from another_raytracer.models.scene import SceneBuilder
+from another_raytracer.utils import native
 
 
 @pytest.fixture()
@@ -52,9 +52,7 @@ def test_python_parser(tiny_obj):
     np.testing.assert_allclose(tri_pos[2], [[0, 0, 0], [1, 1, 0], [0, 1, 0]])
 
 
-def test_native_parser_matches_python(tiny_obj):
-    if not native.available():
-        pytest.skip("native library not built")
+def test_native_parser_matches_python(tiny_obj, native_lib):
     py = mesh_lib._parse_obj_python(tiny_obj)
     nat = native.parse_obj(tiny_obj)
     assert nat is not None
@@ -66,7 +64,7 @@ def test_native_parser_matches_python(tiny_obj):
 
 
 def test_reference_assets_native_vs_python():
-    from another_raytracer_tpu.utils import assets
+    from another_raytracer.utils import assets
     path = assets.capsule_obj_path()
     if path is None or not native.available():
         pytest.skip("assets or native lib unavailable")
@@ -100,11 +98,11 @@ def test_real_reference_assets_render(name, n_tris):
     """cow.obj / dino.obj (the reference's no-mtl assets, ressources.h.in:8-9)
     parse and render end-to-end with the preset cameras — the random-color
     lambertian path (mesh.h:132-138) on real geometry (round-2 VERDICT #7)."""
-    from another_raytracer_tpu.models import library
-    from another_raytracer_tpu.ops import camera as camera_lib
-    from another_raytracer_tpu.ops import render as render_lib
-    from another_raytracer_tpu.config import RenderConfig
-    from another_raytracer_tpu.utils import assets
+    from another_raytracer.models import library
+    from another_raytracer.ops import camera as camera_lib
+    from another_raytracer.ops import render as render_lib
+    from another_raytracer.config import RenderConfig
+    from another_raytracer.utils import assets
 
     path = getattr(assets, f"{name}_obj_path")()
     if path is None:
@@ -117,7 +115,7 @@ def test_real_reference_assets_render(name, n_tris):
     # preset cameras (scene_manager.cpp:334-342) are keyed by file stem
     assert cam_params["lookfrom"] == library._MESH_CAMERAS[name][0]
     cam = camera_lib.make_camera(aspect_ratio=1.0, **cam_params)
-    from another_raytracer_tpu.config import RenderMode
+    from another_raytracer.config import RenderMode
     cfg = RenderConfig(width=32, height=32, samples_per_pixel=2, max_depth=4,
                        mode=RenderMode.SINGLE)
     img, stats = render_lib.render(scene, cam, cfg)
@@ -127,8 +125,8 @@ def test_real_reference_assets_render(name, n_tris):
 
 def test_obj_cli_end_to_end(tmp_path):
     """--obj <real asset> through the CLI (round-2 VERDICT #7)."""
-    from another_raytracer_tpu import cli
-    from another_raytracer_tpu.utils import assets
+    from another_raytracer import cli
+    from another_raytracer.utils import assets
 
     path = assets.dino_obj_path()
     if path is None:
@@ -138,6 +136,6 @@ def test_obj_cli_end_to_end(tmp_path):
                    "--height", "36", "--spp", "2", "--max-depth", "4",
                    "--mode", "single", "--out", str(out)])
     assert rc == 0 and out.exists()
-    from another_raytracer_tpu.utils.imageio import load_image
+    from another_raytracer.utils.imageio import load_image
     img = load_image(out)
     assert img is not None and img.shape == (36, 36, 3) and img.max() > 0

@@ -48,11 +48,11 @@ def test_two_process_distributed_render(tmp_path):
     # be bit-identical regardless of process/device partitioning.
     import jax.numpy as jnp
 
-    from another_raytracer_tpu.ops import render as render_lib
-    from another_raytracer_tpu.ops import vec3
+    from another_raytracer.ops import render as render_lib
+    from another_raytracer.ops import vec3
     W, H, SPP, DEPTH = 24, 12, 4, 3  # must match multihost_worker.py
-    from another_raytracer_tpu.models.scene import SceneBuilder
-    from another_raytracer_tpu.ops import camera as camera_lib
+    from another_raytracer.models.scene import SceneBuilder
+    from another_raytracer.ops import camera as camera_lib
 
     b = SceneBuilder(background=(0.6, 0.7, 0.9), seed=4)
     b.sphere((0, -100.5, -1), 100, b.lambertian(color=(0.4, 0.7, 0.3)))

@@ -1,13 +1,14 @@
 """Native JPEG decoder (native/jpegdec.cpp, stb_image role) and PIL-free
 image loading.  The reference's two assets exercise both JPEG coding modes:
-earthmap.jpg is baseline (SOF0), capsule.jpg is progressive (SOF2)."""
+earthmap.jpg is baseline (SOF0), capsule.jpg is progressive (SOF2); the
+``ref_assets`` fixture writes seeded stand-ins of both (tests/assetgen.py)."""
 
 import sys
 
 import numpy as np
 import pytest
 
-from another_raytracer_tpu.utils import assets, imageio, native
+from another_raytracer.utils import assets, imageio, native
 
 
 def _pil_or_skip():
@@ -19,14 +20,11 @@ def _pil_or_skip():
 
 
 @pytest.mark.parametrize("asset", ["earthmap", "capsule"])
-def test_native_jpeg_matches_pil(asset):
-    if not native.available():
-        pytest.skip("native library not built")
+def test_native_jpeg_matches_pil(asset, ref_assets, native_lib):
     path = (assets.earthmap_path() if asset == "earthmap"
             else assets.capsule_obj_path().parent / "capsule.jpg")
-    if not path.exists():
-        pytest.skip("reference assets unavailable")
     Image = _pil_or_skip()
+    assert Image.open(path).info.get("progressive", 0) == (asset == "capsule")
     a = native.decode_jpeg(path)
     assert a is not None, "native decode failed"
     b = np.asarray(Image.open(path).convert("RGB"))
@@ -37,7 +35,8 @@ def test_native_jpeg_matches_pil(asset):
     assert d.max() <= 4 and d.mean() < 0.1
 
 
-def test_load_image_without_pil(tmp_path, monkeypatch):
+def test_load_image_without_pil(tmp_path, monkeypatch, ref_assets,
+                                native_lib):
     """load_image must decode real files even with PIL absent: JPEG via the
     native decoder, PNG via the stdlib decoder."""
     import builtins
@@ -64,11 +63,8 @@ def test_load_image_without_pil(tmp_path, monkeypatch):
     np.testing.assert_array_equal((back * 255.0).round().astype(np.uint8), img)
 
     # JPEG through the native decoder.
-    if native.available():
-        em = assets.earthmap_path()
-        if em.exists():
-            arr = imageio.load_image(em)
-            assert arr is not None and arr.shape[2] == 3 and arr.max() <= 1.0
+    arr = imageio.load_image(assets.earthmap_path())
+    assert arr is not None and arr.shape[2] == 3 and arr.max() <= 1.0
 
 
 def test_png_decoder_all_filters():

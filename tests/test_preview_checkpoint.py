@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from another_raytracer_tpu.config import RenderConfig
-from another_raytracer_tpu.models.scene import SceneBuilder
-from another_raytracer_tpu.ops import camera as camera_lib
-from another_raytracer_tpu.utils import preview as preview_lib
+from another_raytracer.config import RenderConfig
+from another_raytracer.models.scene import SceneBuilder
+from another_raytracer.ops import camera as camera_lib
+from another_raytracer.utils import preview as preview_lib
 
 W, H = 24, 12
 
@@ -25,9 +25,9 @@ def test_progressive_matches_fused_and_resumes(tmp_path):
     cfg = RenderConfig(width=W, height=H, samples_per_pixel=8, max_depth=4,
                        samples_per_pass=2, seed=3)
 
-    from another_raytracer_tpu.ops import render as render_lib
-    from another_raytracer_tpu.ops import vec3
-    from another_raytracer_tpu.ops import color as color_lib
+    from another_raytracer.ops import render as render_lib
+    from another_raytracer.ops import vec3
+    from another_raytracer.ops import color as color_lib
     acc, _ = render_lib.render_radiance(
         scene, cam, jnp.uint32(3), width=W, height=H, spp=8,
         samples_per_pass=2, max_depth=4, t_min=1e-3,

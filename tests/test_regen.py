@@ -6,11 +6,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from another_raytracer_tpu.models import library
-from another_raytracer_tpu.ops import camera as camera_lib
-from another_raytracer_tpu.ops import integrator
-from another_raytracer_tpu.ops import render as render_lib
-from another_raytracer_tpu.ops import vec3
+from another_raytracer.models import library
+from another_raytracer.ops import camera as camera_lib
+from another_raytracer.ops import integrator
+from another_raytracer.ops import render as render_lib
+from another_raytracer.ops import vec3
 
 W, H = 48, 36
 

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from another_raytracer_tpu.ops import rng
-from another_raytracer_tpu.oracle import cpu_reference as oracle
+from another_raytracer.ops import rng
+from another_raytracer.oracle import cpu_reference as oracle
 
 
 def test_threefry_known_vectors():

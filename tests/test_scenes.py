@@ -4,17 +4,15 @@ smoke; oracle parity for the tractable ones lives in test_vs_oracle)."""
 import numpy as np
 import pytest
 
-from another_raytracer_tpu.config import RenderConfig, RenderMode
-from another_raytracer_tpu.models import library
-from another_raytracer_tpu.ops import camera as camera_lib
-from another_raytracer_tpu.ops import render as render_lib
-from another_raytracer_tpu.utils import assets
+from another_raytracer.config import RenderConfig, RenderMode
+from another_raytracer.models import library
+from another_raytracer.ops import camera as camera_lib
+from another_raytracer.ops import render as render_lib
+from another_raytracer.utils import assets
 
 
 @pytest.mark.parametrize("alias", list(library.SceneAlias))
-def test_scene_renders(alias):
-    if alias == library.SceneAlias.MESH and assets.capsule_obj_path() is None:
-        pytest.skip("no mesh asset")
+def test_scene_renders(alias, ref_assets):
     scene, cam_params = library.build(alias)
     cfg = RenderConfig(width=48, height=36, samples_per_pixel=2, max_depth=4,
                        samples_per_pass=2, mode=RenderMode.SINGLE)
@@ -64,7 +62,7 @@ def test_unknown_scene_raises():
 
 
 def test_empty_scene_raises():
-    from another_raytracer_tpu.models.scene import SceneBuilder
+    from another_raytracer.models.scene import SceneBuilder
     scene = SceneBuilder().build()
     cfg = RenderConfig(width=12, height=12, samples_per_pixel=1, max_depth=1)
     cam = camera_lib.make_camera(lookfrom=(0, 0, 1), lookat=(0, 0, 0), vfov=60,
@@ -80,9 +78,9 @@ def test_medium_record_threads_t_min():
     import jax.numpy as jnp
     import numpy as np
 
-    from another_raytracer_tpu.models.scene import SceneBuilder
-    from another_raytracer_tpu.ops import intersect
-    from another_raytracer_tpu.ops.vec3 import V3
+    from another_raytracer.models.scene import SceneBuilder
+    from another_raytracer.ops import intersect
+    from another_raytracer.ops.vec3 import V3
 
     b = SceneBuilder()
     b.constant_medium_box((0, 0, 0), (1, 1, 1), density=10.0, color=(1, 1, 1))

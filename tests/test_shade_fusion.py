@@ -10,11 +10,11 @@ the separate emitted() + scatter() evaluation.
 import jax.numpy as jnp
 import numpy as np
 
-from another_raytracer_tpu.config import RenderConfig
-from another_raytracer_tpu.models import library
-from another_raytracer_tpu.ops import camera as camera_lib
-from another_raytracer_tpu.ops import integrator, intersect, render as render_lib, shade
-from another_raytracer_tpu.ops.vec3 import V3
+from another_raytracer.config import RenderConfig
+from another_raytracer.models import library
+from another_raytracer.ops import camera as camera_lib
+from another_raytracer.ops import integrator, intersect, render as render_lib, shade
+from another_raytracer.ops.vec3 import V3
 
 
 def _render(scene, cam, w=48, h=36, spp=4):
@@ -88,9 +88,9 @@ def test_atlas_compact_exact(monkeypatch):
     # gather — including the overflow fallback branch.
     import numpy as np
 
-    from another_raytracer_tpu.models.scene import SceneBuilder
-    from another_raytracer_tpu.ops import camera as camera_lib, shade
-    from another_raytracer_tpu.ops import render as render_lib, vec3
+    from another_raytracer.models.scene import SceneBuilder
+    from another_raytracer.ops import camera as camera_lib, shade
+    from another_raytracer.ops import render as render_lib, vec3
 
     b = SceneBuilder(background=(0.7, 0.8, 1.0), seed=2)
     img = np.random.default_rng(0).integers(

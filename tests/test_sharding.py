@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from another_raytracer_tpu.models import library
-from another_raytracer_tpu.ops import camera as camera_lib
-from another_raytracer_tpu.ops.render import render_radiance
-from another_raytracer_tpu.parallel import sharding
+from another_raytracer.models import library
+from another_raytracer.ops import camera as camera_lib
+from another_raytracer.ops.render import render_radiance
+from another_raytracer.parallel import sharding
 
 W, H, SPP, DEPTH = 48, 24, 4, 4
 
@@ -24,7 +24,7 @@ def setup():
         scene, cam, jnp.uint32(1), width=W, height=H, spp=SPP,
         samples_per_pass=2, max_depth=DEPTH, t_min=1e-3,
     )
-    from another_raytracer_tpu.ops import vec3
+    from another_raytracer.ops import vec3
     return scene, cam, vec3.to_numpy(ref), int(segs)
 
 
@@ -36,16 +36,16 @@ def test_sharded_matches_single_device(setup, n_tile, n_spp):
         scene, cam, jnp.uint32(1), mesh=mesh, width=W, height=H, spp=SPP,
         samples_per_pass=2, max_depth=DEPTH, t_min=1e-3,
     )
-    from another_raytracer_tpu.ops import vec3
+    from another_raytracer.ops import vec3
     np.testing.assert_allclose(vec3.to_numpy(acc), ref, rtol=1e-5, atol=1e-5)
     assert int(segs) == ref_segs
 
 
 def test_render_modes_dispatch(setup):
     scene, cam, ref, _ = setup
-    from another_raytracer_tpu.config import RenderConfig, RenderMode
-    from another_raytracer_tpu.ops import render as render_lib
-    from another_raytracer_tpu.ops import color as color_lib
+    from another_raytracer.config import RenderConfig, RenderMode
+    from another_raytracer.ops import render as render_lib
+    from another_raytracer.ops import color as color_lib
 
     ref_img = np.asarray(color_lib.to_uint8(jnp.asarray(ref), SPP)).reshape(H, W, 3)
     for mode in (RenderMode.PARALLEL_STRIPES, RenderMode.PARALLEL_IMAGES):
